@@ -1,6 +1,6 @@
-"""LiveVisionKit-TPU: a TPU-native real-time video stabilization & enhancement engine.
+"""livevisionkit_tpu: a real-time video stabilization & enhancement engine.
 
-A brand-new framework (JAX/XLA/Pallas/pjit) with the capabilities of
+A brand-new framework (JAX/XLA/pjit) with the capabilities of
 Crowsinc/LiveVisionKit (reference: /root/reference): video stabilization
 (grid feature detection, pyramidal sparse Lucas-Kanade flow, batched RANSAC
 homography + mesh WarpField motion models, sliding-window path smoothing with

@@ -10,7 +10,7 @@ StabilizationFilterSettings (Filters/StabilizationFilter.hpp:28-39, which
 (Filters/DeblockingFilter.hpp:26-32), ScalingFilterSettings
 (Filters/ScalingFilter.hpp:26-31).
 
-TPU-native notes: settings are frozen dataclasses (hashable -> usable as
+Design notes: settings are frozen dataclasses (hashable -> usable as
 static jit args); everything that decides a tensor SHAPE lives here so a
 settings object fully determines the compiled program.  Pixel-unit defaults
 match the reference but are expressed on our [0, 1] intensity scale where
@@ -197,12 +197,11 @@ class DeblockingFilterSettings:
     block_size: int = 16
     filter_size: int = 5
     filter_scaling: int = 4
-    # Block-pooling lowering: "reshape" is fastest when XLA can fuse the
-    # pools into a cheap producer (a freshly-uploaded frame), but on any
-    # REAL producer (e.g. the stabilizer's warped output in a chain) it
-    # forces a catastrophic relayout (r5: 4K vs+adb measured 20.1 ms vs
-    # 11.3 with reduce_window; standalone adb 2.2 vs 4.6).
-    # "reduce_window" consumes any layout directly.  "auto" picks reshape
+    # Block-pooling lowering: "reshape" fuses into a cheap producer (a
+    # freshly-uploaded frame), but behind a REAL producer (e.g. the
+    # stabilizer's warped output in a chain) it can force a layout copy.
+    # "reduce_window" consumes any layout directly.  Which is faster on the
+    # GPU is not measured.  "auto" picks reshape
     # for unpadded standalone use; CompositeFilter rewrites mid-chain
     # deblockers to "reduce_window" (filters/base.py).
     pool_form: str = "auto"  # auto | reshape | reduce_window

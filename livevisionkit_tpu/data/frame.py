@@ -6,14 +6,15 @@ metadata-preserving ops and an exhaustive colour-conversion matrix
 (Data/VideoFrame.cpp:170-306) plus a zero-copy ``viewAsFormat``
 (Data/VideoFrame.cpp:310-317).
 
-TPU-native design decisions (not a port):
+Design decisions (not a port):
 
-* **Planar channel-first layout** ``(C, H, W)`` float32 in [0, 1].  The last
-  (W) dimension maps onto the TPU's 128-wide vector lanes; packed HWC layouts
-  with C=3 would waste 125/128 lanes on every elementwise op.  The reference's
-  packed-UMat formats exist because OpenCV/OBS interop demanded them; on TPU
+* **Planar channel-first layout** ``(C, H, W)`` float32 in [0, 1].  The
+  minor (W) dimension is a full image row, so every elementwise op runs over
+  long contiguous rows instead of strided 3-channel pixels.  The reference's
+  packed-UMat formats exist because OpenCV/OBS interop demanded them; here
   the host I/O layer (runtime/) converts once at the boundary.
-* **Pytree value type**: a `Frame` is an immutable pytree (flax.struct) so it
+* **Pytree value type**: a `Frame` is an immutable pytree
+  (`utils.pytree.PyTreeNode`) so it
   flows through `jit`/`scan`/`shard_map` carries without special casing.
 * **Validity flag instead of "empty frame"**: the reference signals
   end-of-chain / warm-up delay with empty cv::Mats (Filters/CompositeFilter
@@ -37,13 +38,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.ops import color as color_ops
 from livevisionkit_tpu.types import PixelFormat
+from livevisionkit_tpu.utils import pytree
 
 
-class Frame(struct.PyTreeNode):
+class Frame(pytree.PyTreeNode):
     """An immutable device-resident video frame.
 
     Attributes:
@@ -60,7 +61,7 @@ class Frame(struct.PyTreeNode):
     timestamp: jax.Array
     valid: jax.Array
     alpha: jax.Array | None = None
-    format: PixelFormat = struct.field(pytree_node=False, default=PixelFormat.UNKNOWN)
+    format: PixelFormat = pytree.field(static=True, default=PixelFormat.UNKNOWN)
 
     # ---- metadata ----------------------------------------------------------
 

@@ -7,7 +7,7 @@ It backs the PathSmoother's trajectory window (Vision/PathSmoother.cpp:55-73)
 and the StabilizationFilter's frame delay queue (Filters/StabilizationFilter
 .cpp:62).
 
-TPU-native design: the buffer is a pytree of fixed-shape tensors with a
+Design: the buffer is a pytree of fixed-shape tensors with a
 leading capacity axis plus (start, count) scalars, so it lives in a
 jit/scan carry.  Pushes are O(1) `dynamic_update_slice` writes into the
 circular slot — crucial for the frame delay queue, where a shift-based
@@ -23,18 +23,20 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax import lax
+
+from livevisionkit_tpu.utils import pytree
 
 
 def _update_leaf(data: jax.Array, elem: jax.Array, slot: jax.Array) -> jax.Array:
     return jax.lax.dynamic_update_index_in_dim(data, elem.astype(data.dtype), slot, 0)
 
 
-class StreamBuffer(struct.PyTreeNode):
+class StreamBuffer(pytree.PyTreeNode):
     data: Any  # pytree; every leaf has leading dim == capacity
     start: jax.Array  # int32 physical index of the oldest element
     count: jax.Array  # int32 number of valid elements
-    capacity: int = struct.field(pytree_node=False)
+    capacity: int = pytree.field(static=True)
 
     # ---- constructors ------------------------------------------------------
 
@@ -143,7 +145,10 @@ class StreamBuffer(struct.PyTreeNode):
         rolled, not the data."""
         w = self.logical_weights(weights)
         return jax.tree.map(
-            lambda d: jnp.tensordot(w.astype(d.dtype), d, axes=(0, 0)), self.data
+            lambda d: jnp.tensordot(
+                w.astype(d.dtype), d, axes=(0, 0), precision=lax.Precision.HIGHEST
+            ),
+            self.data,
         )
 
     def window_valid_mask(self) -> jax.Array:

@@ -5,7 +5,7 @@ Reference parity: ``lvk::VideoFilter`` (reference Filters/VideoFilter.hpp:
 and ``lvk::CompositeFilter`` (Filters/CompositeFilter.cpp:60-88), the
 sequential chain where an empty output breaks the chain (delay filters).
 
-TPU-native design: a filter is a **pure step function** over an explicit
+Design: a filter is a **pure step function** over an explicit
 state pytree:
 
     state = filter.init(spec)
@@ -125,8 +125,8 @@ class CompositeFilter(VideoFilter):
         # `pool_form` lowering choice (the deblocker) get the
         # any-layout-safe form when they are NOT first in the chain — their
         # input is then a real upstream output, where the fused "reshape"
-        # pooling forces catastrophic relayouts (r5: 4K vs+adb 20.1 ms vs
-        # 11.3; see DeblockingFilterSettings.pool_form).
+        # pooling can force layout copies (see
+        # DeblockingFilterSettings.pool_form).
         rewritten = []
         for i, f in enumerate(self.filters):
             s = getattr(f, "settings", None)

@@ -9,9 +9,9 @@ reference frame); multi-level threshold -> float keep map (:86-95, keep =
 min(floor(measure_8bit), levels)/levels so flat blocks smooth fully);
 cv::blendLinear original vs smoothed (:100-107).
 
-TPU-native notes: every stage is a static-shape XLA op — integer-factor
-INTER_AREA resizes are exact block means (avg_pool), the median is a sort
-over k^2 shifted stacks, and the whole filter fuses into a handful of VPU
+Every stage is a static-shape XLA op — integer-factor INTER_AREA resizes
+are exact block means (avg_pool), the median is a selection network over
+k^2 shifted stacks, and the whole filter fuses into a few elementwise
 passes.  The partial-block border passes through untouched, like the
 reference's crop-not-pad choice.
 """
@@ -44,10 +44,9 @@ class DeblockingFilter(VideoFilter):
         # Pad UP to whole macroblocks instead of cropping down: partial
         # border blocks still pass through untouched (keep forced to 1
         # below — the reference's crop-not-pad semantics, :64-71), but the
-        # whole pipeline stays one fused full-frame elementwise pass.  The
-        # crop + `.at[:, :fh, :fw].set` formulation measured 2.87 ms at
-        # 1080p (crop to 1072 rows + splice) vs 0.26 ms aligned — the
-        # splice forces full-frame materialization between every stage.
+        # whole pipeline stays one fused full-frame elementwise pass (a
+        # crop + `.at[:, :fh, :fw].set` splice would force full-frame
+        # materialization between every stage).
         ph, pw = -(-h // block) * block, -(-w // block) * block
         px = jnp.pad(
             frame.pixels, ((0, 0), (0, ph - h), (0, pw - w)), mode="edge"
@@ -57,10 +56,9 @@ class DeblockingFilter(VideoFilter):
         # scaling (block 16 % scaling 4 == 0), so INTER_AREA == avg_pool.
         # Pooling flavour by producer (see DeblockingFilterSettings.
         # pool_form): the reshape form is only fast when XLA fuses the
-        # pools into a cheap producer — standalone unpadded frames; a pad
-        # (1080p) or a real upstream filter output (any chain) forces
-        # relayouts measured at 2.5-10 ms.  reduce_window consumes any
-        # layout directly.
+        # pools into a cheap producer — standalone unpadded frames; behind a
+        # pad (1080p) or a real upstream filter output (any chain) it can
+        # force layout copies.  reduce_window consumes any layout directly.
         form = s.pool_form
         if form == "auto":
             form = "reshape" if (ph == h and pw == w) else "reduce_window"

@@ -6,7 +6,7 @@ getOptimalNewCameraMatrix + initUndistortRectifyMap as a WarpField with a
 normalized view-region crop, cached until size/profile change (:133-171),
 and applies it through the standard warp path (:185-191).
 
-TPU-native: the rectification field is computed ONCE at init (host numpy,
+Design: the rectification field is computed ONCE at init (host numpy,
 vision/calibration.py) and baked into the filter state as a small
 WarpField tensor; per frame it's the same warp machinery as stabilization.
 """

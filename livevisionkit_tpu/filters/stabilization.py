@@ -9,7 +9,7 @@ buffer (:118), PathSmoother correction applied to the delayed frame via the
 warp (:117-134), optional stable-region crop, and a bypass path that only
 maintains delay/crop when disabled (:77-95); `stable_region()` (:199-205).
 
-TPU-native design: ONE pure step `(state, frame) -> (state, frame)` holding
+Design: ONE pure step `(state, frame) -> (state, frame)` holding
 tracker pyramid/features, the trajectory window, the frame delay queue and
 the QA scalars in a single carry pytree — jit once, then drive it from the
 streaming runtime (live mode) or `lax.scan` (offline mode).  Invalid input
@@ -24,7 +24,6 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.config import StabilizationFilterSettings
 from livevisionkit_tpu.data.frame import Frame
@@ -32,6 +31,7 @@ from livevisionkit_tpu.data.stream_buffer import StreamBuffer
 from livevisionkit_tpu.filters.base import FrameSpec, VideoFilter, where_state
 from livevisionkit_tpu.models.homography import Homography
 from livevisionkit_tpu.models.warp_field import WarpField
+from livevisionkit_tpu.utils import pytree
 from livevisionkit_tpu.vision import frame_tracker, path_smoother
 
 
@@ -52,7 +52,7 @@ def _dequantize_u8(frame: Frame) -> Frame:
     )
 
 
-class StabilizerState(struct.PyTreeNode):
+class StabilizerState(pytree.PyTreeNode):
     tracker: frame_tracker.TrackerState
     smoother: path_smoother.SmootherState
     frames: StreamBuffer  # delay queue of Frames (capacity N+1)

@@ -4,7 +4,7 @@ Reference parity: ``lvk::Homography`` (reference Math/Homography.hpp:26-112,
 Math/Homography.cpp) — point/vector transforms, warping, inversion, algebra,
 and construction from affine/similarity parameters.
 
-TPU-native notes: a Homography is a tiny (3, 3) float32 tensor; everything
+Design notes: a Homography is a tiny (3, 3) float32 tensor; everything
 here is closed-form math that vmaps cleanly, so RANSAC can evaluate hundreds
 of hypotheses in one batched op (see vision/ransac.py).  Point convention:
 points are (..., 2) arrays ordered (x, y); sample maps for remap are (2, H, W)
@@ -15,16 +15,17 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax import lax
 
 from livevisionkit_tpu.ops import remap as remap_ops
+from livevisionkit_tpu.utils import pytree
 
 
 def dlt4(src: jax.Array, dst: jax.Array) -> jax.Array:
     """Batched exact 4-point DLT: (..., 4, 2) x2 -> (..., 3, 3).
 
-    TPU-native solver: LAPACK-style `linalg.solve` on tiny 8x8 systems is
-    the slowest op a TPU can run (sequential pivoted LU); instead the 8x8
+    Batched solver: instead of a LAPACK-style `linalg.solve` (a sequential
+    pivoted LU per tiny system), the 8x8
     system is eliminated by an UNROLLED partially-pivoted Gauss-Jordan — 8
     static steps of elementwise/broadcast math (pivot selection is a masked
     argmax + row permutation) that vectorize over any batch.  Points are
@@ -67,7 +68,7 @@ def dlt4(src: jax.Array, dst: jax.Array) -> jax.Array:
     return m * scale_t
 
 
-class Homography(struct.PyTreeNode):
+class Homography(pytree.PyTreeNode):
     m: jax.Array  # (3, 3) float32
 
     # ---- constructors ------------------------------------------------------
@@ -117,7 +118,7 @@ class Homography(struct.PyTreeNode):
 
     def __matmul__(self, other: "Homography") -> "Homography":
         """Composition: (self @ other)(p) == self(other(p))."""
-        return Homography(m=self.m @ other.m)
+        return Homography(m=jnp.matmul(self.m, other.m, precision=lax.Precision.HIGHEST))
 
     def inverse(self) -> "Homography":
         """Closed-form adjugate inverse: for a homography only the matrix up
@@ -146,7 +147,7 @@ class Homography(struct.PyTreeNode):
         Math/Homography.cpp:116-158)."""
         ones = jnp.ones(pts.shape[:-1] + (1,), pts.dtype)
         ph = jnp.concatenate([pts, ones], axis=-1)
-        out = ph @ self.m.astype(pts.dtype).T
+        out = jnp.matmul(ph, self.m.astype(pts.dtype).T, precision=lax.Precision.HIGHEST)
         return out[..., :2] / out[..., 2:3]
 
     def sample_map(self, size: tuple[int, int], inverse: bool = True) -> jax.Array:
@@ -158,9 +159,8 @@ class Homography(struct.PyTreeNode):
         from pose H'."""
         h, w = size
         m = (self.inverse() if inverse else self).m.astype(jnp.float32)
-        # Fused scalar-broadcast arithmetic: ~2 VPU passes over the output,
-        # no homogeneous point tensor and no tiny-contraction matmul (which
-        # cost ~0.4 ms at 1080p).
+        # Fused scalar-broadcast arithmetic: one elementwise pass over the
+        # output, no homogeneous point tensor and no tiny-contraction matmul.
         xx = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1)
         yy = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0)
         den = m[2, 0] * xx + m[2, 1] * yy + m[2, 2]

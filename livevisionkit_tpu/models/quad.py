@@ -6,7 +6,7 @@ Homography, with `encloses(point/rect/quad)` half-plane tests in
 counter-clockwise order (BoundingQuad.cpp:71-83) — the crop-validity
 primitive (does the warped frame still cover a crop region?).
 
-TPU-native: vertices are one (4, 2) xy tensor; the sign tests are a batched
+Design: vertices are one (4, 2) xy tensor; the sign tests are a batched
 cross-product reduce, so `encloses_points` handles any number of query
 points in one fused pass and the whole test stays on device (jit/vmap-safe,
 returns traced booleans).  For non-homography (mesh) warps the equivalent
@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.models.homography import Homography
+from livevisionkit_tpu.utils import pytree
 
 
-class Quad(struct.PyTreeNode):
+class Quad(pytree.PyTreeNode):
     """Counter-clockwise quad vertices, (4, 2) as (x, y) rows (the
     reference's vertex order, BoundingQuad.cpp:29-34: tl, tr, br, bl of the
     source rect — counter-clockwise in image coordinates where y points

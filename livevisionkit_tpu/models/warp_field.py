@@ -8,7 +8,7 @@ WarpMesh.cpp:318-560) and an ``apply`` that upsamples the mesh to frame
 resolution and remaps (WarpMesh.cpp:183-223; 2x2 meshes short-circuit to an
 exact homography warp :196-218).
 
-TPU-native design:
+Design:
   * Offsets are a single (2, Hm, Wm) float32 tensor, plane 0 = dy, plane 1 =
     dx, in **normalized units** (1.0 = frame height/width - 1) so fields are
     resolution-independent, exactly like the reference's normalized meshes.
@@ -28,11 +28,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.models.homography import Homography
 from livevisionkit_tpu.ops import remap as remap_ops
 from livevisionkit_tpu.ops import resample
+from livevisionkit_tpu.utils import pytree
 
 
 def _norm_scale(size: tuple[int, int], dtype=jnp.float32) -> jax.Array:
@@ -50,7 +50,7 @@ def _grid_points_px(field_shape: tuple[int, int], size: tuple[int, int]) -> jax.
     return jnp.stack([yy, xx])
 
 
-class WarpField(struct.PyTreeNode):
+class WarpField(pytree.PyTreeNode):
     offsets: jax.Array  # (2, Hm, Wm) normalized backward offsets (dy, dx)
 
     # ---- metadata ----------------------------------------------------------

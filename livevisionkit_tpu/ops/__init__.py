@@ -1,3 +1,3 @@
-# Low-level image ops (XLA-composed reference impls + Pallas fast paths).
+# Low-level image ops, composed from XLA primitives.
 # Submodules are imported lazily by users to keep import cost down:
 #   from livevisionkit_tpu.ops import color, resample, remap

@@ -18,12 +18,11 @@ This is a different kernel from FSR's RCAS (ops/rcas.py): CAS measures
 local contrast over the full 3x3 box and shapes the amount with a sqrt,
 RCAS is a 5-tap ringing-limited lobe.  Both ship, as in the reference.
 
-TPU-native notes: a pure 3x3 stencil — eight shifted views of one edge-pad
-plus elementwise math, fused by XLA into one VPU pass over (C, H, W).  The
-reference's bit-trick approximate rcp/sqrt (APrxLoRcpF1/APrxLoSqrtF1) are
-replaced by exact division/sqrt: on TPU the exact forms cost the same VPU
-slot and the tolerance tests bound the difference (same call the EASU port
-makes, ops/easu.py).
+A pure 3x3 stencil — eight shifted views of one edge-pad plus elementwise
+math, which XLA fuses into one pass over (C, H, W).  The reference's
+bit-trick approximate rcp/sqrt (APrxLoRcpF1/APrxLoSqrtF1) are replaced by
+division/sqrt; the tolerance tests bound the difference (same call the EASU
+port makes, ops/easu.py).
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from livevisionkit_tpu.types import PixelFormat
 
@@ -25,7 +26,9 @@ _CHROMA_OFFSET = 0.5
 
 def _matmul_chw(m: jax.Array, pixels: jax.Array, offset: jax.Array) -> jax.Array:
     """Apply y = m @ x + offset per pixel on a (3, H, W) tensor."""
-    return jnp.einsum("ij,jhw->ihw", m.astype(pixels.dtype), pixels) + offset[
+    return jnp.einsum(
+        "ij,jhw->ihw", m.astype(pixels.dtype), pixels, precision=lax.Precision.HIGHEST
+    ) + offset[
         :, None, None
     ].astype(pixels.dtype)
 
@@ -47,7 +50,7 @@ def rgb_to_yuv_matrix() -> tuple[jax.Array, jax.Array]:
 def yuv_to_rgb_matrix() -> tuple[jax.Array, jax.Array]:
     m, off = rgb_to_yuv_matrix()
     inv = jnp.linalg.inv(m)
-    return inv, -inv @ off
+    return inv, -jnp.matmul(inv, off, precision=lax.Precision.HIGHEST)
 
 
 def luma(pixels: jax.Array, fmt: PixelFormat) -> jax.Array:
@@ -60,7 +63,7 @@ def luma(pixels: jax.Array, fmt: PixelFormat) -> jax.Array:
         w = jnp.array([_LUMA_B, _LUMA_G, _LUMA_R], pixels.dtype)
     else:
         raise ValueError(f"cannot take luma of {fmt}")
-    return jnp.einsum("c,chw->hw", w, pixels)
+    return jnp.einsum("c,chw->hw", w, pixels, precision=lax.Precision.HIGHEST)
 
 
 def convert(pixels: jax.Array, src: PixelFormat, dst: PixelFormat) -> jax.Array:

@@ -6,7 +6,7 @@ helpers + per-format colour tables (reference Functions/Drawing.hpp:22-124),
 used by every filter's test mode (e.g. StabilizationFilter debug draws,
 StabilizationFilter.cpp:163-188; LCFilter grid overlay, LCFilter.cpp:179-183).
 
-TPU-native: overlays are computed as dense masks (iota compares / scatter
+Design: overlays are computed as dense masks (iota compares / scatter
 one-hots) and blended in one fused pass — no per-primitive kernel launches.
 """
 

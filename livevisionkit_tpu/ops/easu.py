@@ -6,13 +6,13 @@ offset-map warp `easu_remap` (:362-403) with background fill + a
 nearest-neighbour ring just inside the border (:385-397), the inline
 projective variant `easu_remap_homography` (:407-452), and `easu_scale`
 (:324-358).  The reference evaluates one output pixel per work-item; here the
-whole surface evaluates as one fixed-shape tensor program (12 gathers + VPU
-math), which is also the oracle for the Pallas kernel (ops/pallas/).
+whole surface evaluates as one fixed-shape tensor program (12 gathers plus
+elementwise math) that XLA fuses.
 
 Math notes vs the reference: the bit-trick approximate rcp/rsqrt
-(APrxLoRcp/APrxLoRsq) are replaced by exact `lax.rsqrt`/division — on TPU the
-exact forms are just as cheap and slightly *more* accurate than the
-reference's approximations; tolerance tests bound the difference.
+(APrxLoRcp/APrxLoRsq) are replaced by `lax.rsqrt`/division, which are
+slightly *more* accurate than the reference's approximations; tolerance
+tests bound the difference.
 
 Tap layout around the sample point (x right, y down), f = floor(sample):
         b c
@@ -107,12 +107,12 @@ def _easu_core(
 
 
 def _shape_kernel(dirx: jax.Array, diry: jax.Array, length: jax.Array):
-    """Direction normalization + kernel shaping (FSR.cl:306-330), shared by
-    `_easu_filter` and the batched Pallas kernel's weight-plane pass.
+    """Direction normalization + kernel shaping (FSR.cl:306-330) for
+    `_easu_filter`.
 
     Returns (dxx, dyx, dxy, dyy, clp, cw1, cw2, cw3, cw4): the rotated-
     distance planes hoisting direction*length products and the Horner
-    coefficients of the quartic tap weight (see the r4 note in
+    coefficients of the quartic tap weight (see the note in
     `_easu_filter`); per-tap weight = 1 + d2*(cw1 + d2*(cw2 + d2*(cw3 +
     d2*cw4))) with d2 = min(vx^2 + vy^2, clp)."""
     # Normalize direction; degenerate -> horizontal (FSR.cl:306-312).
@@ -162,10 +162,9 @@ def _easu_filter(
     mi4 = jnp.minimum(jnp.minimum(px["f"], px["g"]), jnp.minimum(px["j"], px["k"]))
     ma4 = jnp.maximum(jnp.maximum(px["f"], px["g"]), jnp.maximum(px["j"], px["k"]))
 
-    # 12 weighted taps (easu_tap, FSR.cl:100-127).  r4 VPU restructuring of
-    # the reference's per-tap weight math — algebraically identical, ~30%
-    # fewer plane ops on the hot loop (this tail is ~80% of the 1080p→4K
-    # upscale's compute):
+    # 12 weighted taps (easu_tap, FSR.cl:100-127).  A restructuring of the
+    # reference's per-tap weight math — algebraically identical, with fewer
+    # elementwise ops per tap:
     #   * wb = 25/16*(2/5*d2-1)^2 - 9/16 expands EXACTLY to
     #     0.25*d2^2 - 1.25*d2 + 1, so w = wa*wb is a quartic in d2 whose
     #     coefficients depend only on lob — Horner with 4 per-pixel
@@ -186,8 +185,8 @@ def _easu_filter(
         ac = ac + px[letter] * w
         aw = aw + w
 
-    # Single-plane reciprocal shared across channels (divisions are the
-    # expensive VPU op; aw is one plane, ac is C planes).
+    # Single-plane reciprocal shared across channels (aw is one plane, ac
+    # is C planes).
     out = ac * (1.0 / jnp.where(jnp.abs(aw) > 1e-20, aw, 1e-20))
     return jnp.clip(out, mi4, ma4)
 
@@ -197,6 +196,7 @@ def easu_remap(
     sample_map: jax.Array,
     fmt: PixelFormat = PixelFormat.YUV,
     fill: jax.Array | float = 0.0,
+    origin: tuple = (0, 0),
 ) -> jax.Array:
     """Backward-warp (C, H, W) image through (2, H', W') absolute (y, x)
     coordinates with EASU filtering (reference easu_remap, FSR.cl:362-403).
@@ -204,6 +204,11 @@ def easu_remap(
     Border semantics match the reference (:385-397): sample centers whose
     4x4 support would leave the image fall back to nearest-neighbour; fully
     outside samples take the background `fill`.
+
+    `origin` (integers, may be traced) is where `img` starts in the map's
+    coordinates: a halo-padded stripe of a larger frame samples at
+    floor(map) - origin with the map's own sub-pixel offsets, exactly as
+    the whole frame would.
     """
     squeeze = img.ndim == 2
     if squeeze:
@@ -214,8 +219,8 @@ def easu_remap(
     x0 = jnp.floor(xs)
     ppy = ys - y0
     ppx = xs - x0
-    y0i = y0.astype(jnp.int32)
-    x0i = x0.astype(jnp.int32)
+    y0i = y0.astype(jnp.int32) - origin[0]
+    x0i = x0.astype(jnp.int32) - origin[1]
 
     px = {}
     for letter, (dx, dy) in _TAPS.items():
@@ -249,10 +254,9 @@ def _easu_scale_rational(
     With output pixel u = 2p*k + r, the source tap index (2q*u + q - p) //
     (2p) + dt splits into 2q*k + psi(r, dt): for each of the 2p x 2p output
     PHASES every tap plane is a unit slice + even-reshape select of the
-    source (no gathers, no strided slices, no repeat — all of which relayout
-    or OOM at 4K: the 12 gathered 4K tap planes of the naive path are
-    ~1.2 GB and faulted the device), and the sub-pixel offsets ppx/ppy are
-    per-phase COMPILE-TIME CONSTANTS (classic polyphase filtering).  The
+    source (no gathers, no strided slices, no repeat: the 12 gathered 4K
+    tap planes of the naive path would be ~1.2 GB), and the sub-pixel
+    offsets ppx/ppy are per-phase COMPILE-TIME CONSTANTS (classic polyphase filtering).  The
     EASU core then runs once per phase on (oh/2p, ow/2p) tiles and the
     phases interleave back with one stack+reshape per axis.
 
@@ -283,7 +287,7 @@ def _easu_scale_rational(
 
     def rsel(x, axis, start, stride, count):
         """x[..., start + stride*k, ...] for k in [0, count) — slice +
-        even-reshape select (free on TPU, unlike strided slicing)."""
+        even-reshape select, which fuses into the consumer."""
         sl = [slice(None)] * x.ndim
         sl[axis] = slice(start, start + stride * count)
         xr = x[tuple(sl)]
@@ -297,8 +301,7 @@ def _easu_scale_rational(
     # Per-INPUT-pixel direction/length terms, computed once (see _dir_terms):
     # the gather path re-derives them per output corner — 4 evaluations per
     # output pixel; here each input pixel is a corner of ~ (p/q)^2 outputs,
-    # so hoisting them cuts ~25% of the EASU op count at 2x (measured
-    # 7.4 -> 5.9 ms at 1080p->4K, tools/profile_enhance.py).  Values are
+    # so hoisting them cuts ~25% of the EASU op count at 2x.  Values are
     # identical: same formulas on the same edge-padded input.
     if fmt in (PixelFormat.YUV, PixelFormat.GRAY):
         lum = a[0]
@@ -373,9 +376,9 @@ def _easu_scale_rational(
             )
             col_groups.append(val)
         row_groups.append(col_groups)
-    # Materialization barrier: without it XLA fuses the phase math into the
-    # interleave concats and the whole scale slows ~1.5x (measured 9.0 ms vs
-    # 6.4 ms at 4K); the assembly itself costs ~0.3 ms standalone.
+    # Materialization barrier: keeps XLA from fusing the phase math into
+    # the interleave concats (chosen on the earlier accelerator; its effect
+    # on the GPU is not measured).
     flat = jax.lax.optimization_barrier(
         tuple(v for group in row_groups for v in group)
     )
@@ -392,31 +395,10 @@ def _easu_scale_rational(
     return out[0] if squeeze else out
 
 
-def _pallas_scale_eligible(py, qy, px_, qx, h, w, force: str | None) -> bool:
-    """Integer 2x upscales of large even TPU frames take the fused Pallas
-    kernel (ops/tpu_kernels/easu_scale.py).  `force` ("xla" | "pallas",
-    None -> LVK_EASU env var) is trace-time: inside jit the choice is baked
-    into the compiled executable, so pass it explicitly (or set the env var
-    before the first compile), not mid-run."""
-    import os
-
-    force = (os.environ.get("LVK_EASU", "") if force is None else force).lower()
-    if force == "xla":
-        return False
-    ok = (
-        qy == qx == 1 and py == px_ == 2
-        and h % 2 == 0 and w % 2 == 0 and h >= 64 and w >= 64
-    )
-    if force == "pallas":
-        return ok
-    return ok and jax.default_backend() == "tpu" and h >= 512 and w >= 512
-
-
 def easu_scale(
     img: jax.Array,
     out_size: tuple[int, int],
     fmt: PixelFormat = PixelFormat.YUV,
-    force: str | None = None,
 ) -> jax.Array:
     """EASU upscale to `out_size` (reference easu_scale, FSR.cl:324-358):
     sample positions follow the half-pixel convention
@@ -434,12 +416,6 @@ def easu_scale(
     gy, gx = math.gcd(oh, h), math.gcd(ow, w)
     py, qy = oh // gy, h // gy
     px_, qx = ow // gx, w // gx
-    if _pallas_scale_eligible(py, qy, px_, qx, h, w, force):
-        from livevisionkit_tpu.ops.tpu_kernels import easu_scale as pes
-
-        return pes.pallas_easu_up(
-            img, p=py, fmt=fmt, interpret=jax.default_backend() != "tpu"
-        )
     if max(py, px_) <= 8 and py >= qy and px_ >= qx:
         return _easu_scale_rational(img, out_size, fmt, py, qy, px_, qx)
 

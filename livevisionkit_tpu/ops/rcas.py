@@ -6,55 +6,21 @@ drives a negative-lobe sharpening amount limited so no ringing is introduced
 (lobe clamped to [-0.1875, 0] scaled by sharpness), resolved as
 (b+d+f+h)*lobe + e) / (4*lobe + 1).  Border pixels copy through.
 
-TPU-native: a pure 5-point stencil — four shifted views + elementwise math,
-fused by XLA into one VPU pass over the (C, H, W) planes.
+A pure 5-point stencil — four shifted views + elementwise math, which XLA
+fuses into one pass over the (C, H, W) planes.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
 
 
-def _pallas_eligible(h: int, w: int, force: str | None) -> bool:
-    """Large TPU frames take the single-pass Pallas kernel.
-
-    Measured at 4K on v5e (r3): Pallas 2.0 ms; this XLA stencil 3.1 ms;
-    a 2D-per-plane restructuring 2.6 ms; dropping the cross-channel lobe
-    max (NOT reference parity) 1.3 ms — the (1, H, W) -> (C, H, W) lobe
-    broadcast is what XLA refuses to fuse into one pass, so the Pallas
-    kernel stays the best conforming implementation."""
-    force = (os.environ.get("LVK_RCAS", "") if force is None else force).lower()
-    if force == "xla":
-        return False
-    if force == "pallas":
-        return True
-    return jax.default_backend() == "tpu" and h >= 256 and w >= 256
-
-
-def rcas(img: jax.Array, sharpness: float = 0.8, force: str | None = None) -> jax.Array:
-    """Sharpen (C, H, W) or (H, W) planes. `sharpness` in [0, 1].
-
-    `force` picks the implementation ("xla" | "pallas"); None falls back to
-    the LVK_RCAS env var.  The choice is trace-time: inside a jitted step it
-    is baked into the compiled executable, so pass it explicitly (or set the
-    env var before the first compile) rather than mutating the environment
-    mid-run.
-    """
+def rcas(img: jax.Array, sharpness: float = 0.8) -> jax.Array:
+    """Sharpen (C, H, W) or (H, W) planes. `sharpness` in [0, 1]."""
     squeeze = img.ndim == 2
     if squeeze:
         img = img[None]
-
-    if _pallas_eligible(img.shape[-2], img.shape[-1], force):
-        from livevisionkit_tpu.ops.tpu_kernels import rcas as pallas_rcas_mod
-
-        out = pallas_rcas_mod.pallas_rcas(
-            img, sharpness=float(sharpness),
-            interpret=jax.default_backend() != "tpu",
-        )
-        return out[0] if squeeze else out
 
     e = img
     # Shifted views as unit-stride slices of one edge-pad: XLA fuses these
@@ -77,7 +43,7 @@ def rcas(img: jax.Array, sharpness: float = 0.8, force: str | None = None) -> ja
     lobe = jnp.clip(jnp.max(lobe_c, axis=0, keepdims=True), -0.1875, 0.0) * sharpness
 
     # One reciprocal on the shared (1, H, W) lobe plane instead of a
-    # 3-channel broadcast division (divisions cost several VPU slots each).
+    # 3-channel broadcast division.
     out = ((b + d + f + h) * lobe + e) * (1.0 / (4.0 * lobe + 1.0))
 
     # Borders copy through (FSR.cl:484-491).

@@ -7,10 +7,8 @@ launch the fused OpenCL ``easu_remap`` / ``easu_remap_homography`` kernels
 that fall outside the source are filled with a background colour, with a
 nearest-neighbour fallback ring just inside the border (FSR.cl:385-397).
 
-This module holds the XLA-composed implementations (gather-based bilinear),
-which serve as both the correctness oracle and the CPU path.  The
-EASU-filtered Pallas fast path lives in ops/easu.py; both share the
-coordinate conventions defined here:
+This module holds the gather-based bilinear warp; the EASU-filtered warp
+lives in ops/easu.py.  Both share the coordinate conventions defined here:
 
   * Sample maps are **absolute pixel coordinates** stacked as (2, H, W) with
     plane 0 = y, plane 1 = x (pixel centers at integer coordinates, like
@@ -19,8 +17,6 @@ coordinate conventions defined here:
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -71,25 +67,6 @@ def bilinear_sample(
     return out
 
 
-def _pallas_eligible(img: jax.Array, sample_map: jax.Array) -> bool:
-    """Route large same-size TPU warps through the Pallas kernel.
-
-    XLA lowers image gathers to ~10 ns/element on TPU (a 1080p 3-channel
-    bilinear warp costs ~70 ms); the shift-select Pallas kernel does the same
-    warp gather-free.  Trace-time static decision.  Override with
-    LVK_REMAP=xla|pallas.
-    """
-    force = os.environ.get("LVK_REMAP", "").lower()
-    if force == "xla":
-        return False
-    h, w = img.shape[-2], img.shape[-1]
-    if sample_map.shape[-2:] != (h, w):
-        return False  # resizing maps keep the generic gather path
-    if force == "pallas":
-        return True
-    return jax.default_backend() == "tpu" and h >= 256 and w >= 256
-
-
 def remap(
     img: jax.Array,
     sample_map: jax.Array,
@@ -106,29 +83,9 @@ def remap(
     default at the call sites that mirror WarpMesh::apply (the reference
     *always* remaps through the fused EASU kernel, WarpMesh.cpp:183-223 →
     FSR.cl:362-403); "bilinear" is the cheaper option.  `fmt` is the
-    PixelFormat used for EASU's luma selection (default YUV).  Border
-    deviation in the Pallas EASU path: the reference's nearest-neighbour
-    ring just inside the border (FSR.cl:385-397) is approximated by EASU
-    with edge-clamped taps in the <=5-px sample-space ring (the fill region
-    itself is exact); the XLA path reproduces the ring exactly.
-
-    On TPU, frame-sized warps dispatch to the gather-free Pallas kernel
-    (ops/tpu_kernels/warp.py); the XLA gather path below is the oracle and
-    the CPU/small-image path.
-
-    Batched (vmapped) behaviour, r3 on v5e at 1080p: vmapping the solo
-    Pallas path costs ~1.5 ms/stream at batch 8 (vs 0.62 solo) because its
-    mean-shift removal is a per-stream `lax.dynamic_slice`, which XLA lowers
-    as a gather under vmap — measured ~5.7 ms extra at S=8 even with
-    lane-aligned offsets.  `remap` therefore wires a `custom_vmap` rule
-    that bypasses the default vmap lifting: it runs the solo kernel per
-    stream under a sequential `lax.map` (the stream axis becomes a scan
-    axis, so the mean shift stays a slice) — measured r5 at S=8 u8 1080p:
-    0.62 ms/stream bilinear / 1.54 EASU, beating the scalar-prefetch
-    batched kernels (1.14 / 2.18; see the rule in `_pallas_core` for the
-    breakdown and LVK_BATCHED_WARP to flip).  The XLA gather path at batch
-    8 faults this environment's TPU backend outright — keep the Pallas
-    dispatch for batched serving.
+    PixelFormat used for EASU's luma selection (default YUV).  uint8
+    images are warped in float32 and re-quantized on output, as the
+    reference warps u8 UMats into u8 outputs.
     """
     if filter_mode not in ("bilinear", "easu"):
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
@@ -136,28 +93,6 @@ def remap(
         from livevisionkit_tpu.types import PixelFormat
 
         fmt = PixelFormat.YUV
-    if _pallas_eligible(img, sample_map):
-        from livevisionkit_tpu.ops.tpu_kernels import warp as pwarp
-
-        # Forced-on CPU (LVK_REMAP=pallas) runs the kernel interpreted so the
-        # dispatch path itself is testable off-TPU.
-        interpret = jax.default_backend() != "tpu"
-        squeeze = img.ndim == 2
-        img3 = img[None] if squeeze else img
-        h, w = img3.shape[-2:]
-        # uint8 frames ride the whole Pallas path as u8 (4x less pad/DMA
-        # traffic; the kernels cast in VMEM) and re-quantize on output —
-        # exactly the reference, which warps u8 UMats into u8 outputs.
-        if img3.dtype != jnp.uint8:
-            img3 = img3.astype(jnp.float32)
-        out = _pallas_core(interpret, filter_mode, fmt)(img3, sample_map)
-        out = pwarp._apply_fill(
-            out, sample_map, (h, w), fill, out.dtype,
-            floor_inside=(filter_mode == "easu"),
-        )
-        if out.dtype != img.dtype:
-            out = _cast_like(out, img.dtype)
-        return out[0] if squeeze else out
     img_f = img.astype(jnp.float32) if img.dtype == jnp.uint8 else img
     if filter_mode == "easu":
         from livevisionkit_tpu.ops import easu as easu_ops
@@ -172,77 +107,6 @@ def _cast_like(out: jax.Array, dtype) -> jax.Array:
     if dtype == jnp.uint8:
         return jnp.clip(jnp.round(out), 0.0, 255.0).astype(jnp.uint8)
     return out.astype(dtype)
-
-
-def _pallas_core(interpret: bool, filter_mode: str = "bilinear", fmt=None):
-    """custom_vmap-wrapped Pallas warp core (unfilled), cached per mode.
-
-    Solo calls run pallas_remap; `jax.vmap` over streams (the serving DP
-    axis, parallel/streams.py) routes to pallas_remap_batched via the rule
-    below instead of the default pallas vmap lifting, avoiding the batched
-    mean-shift gather described in `remap`'s docstring.
-
-    Constraint (r3 advisor): `custom_vmap` does not compose with autodiff —
-    this path raises under jax.grad/jvp.  Nothing in the engine
-    differentiates through warps today; if that ever changes, route
-    differentiated calls through `bilinear_sample` (the XLA gather path is
-    grad-complete) instead of this core.
-    """
-    key = (interpret, filter_mode, fmt)
-    core = _PALLAS_CORE_CACHE.get(key)
-    if core is not None:
-        return core
-    from jax import custom_batching
-
-    from livevisionkit_tpu.ops.tpu_kernels import warp as pwarp
-
-    @custom_batching.custom_vmap
-    def core(img, smap):
-        return pwarp.pallas_remap(
-            img, smap, fill=None, fill_mode=False, interpret=interpret,
-            filter_mode=filter_mode, fmt=fmt,
-        )
-
-    @core.def_vmap
-    def _rule(axis_size, in_batched, img_b, smap_b):
-        img_bat, smap_bat = in_batched
-        if not img_bat:
-            img_b = jnp.broadcast_to(img_b[None], (axis_size,) + img_b.shape)
-        if not smap_bat:
-            smap_b = jnp.broadcast_to(smap_b[None], (axis_size,) + smap_b.shape)
-        # DEFAULT: sequential solo kernels under lax.map.  Measured on the
-        # chip (r5, S=8 1080p u8, serving-scale poses): lax.map solo beats
-        # the batched scalar-prefetch kernels for BOTH filters — bilinear
-        # 4.9 ms vs 9.1, EASU 12.3 ms vs 17.4.  The batched kernels pay a
-        # widened margin (m_eff = margin + b/2 block-residual absorption:
-        # ~33% wider shift-select planes), a per-channel-step staging copy,
-        # and 21 DMA descriptors per grid step (ablation r5: 4.4 ms floor
-        # with ALL compute ablated); under lax.map the per-stream
-        # dynamic-slice mean shift is a slice (the stream axis is a scan
-        # axis), so the r3 vmap-gather penalty that motivated the batched
-        # path never applies.  LVK_BATCHED_WARP=kernel re-enables the
-        # batched dispatch for future re-evaluation (it may win where
-        # per-stream displacements diverge by >max_shift or on hardware
-        # with cheaper descriptor setup).
-        if os.environ.get("LVK_BATCHED_WARP", "").lower() == "kernel":
-            return pwarp.pallas_remap_batched(
-                img_b, smap_b, interpret=interpret,
-                filter_mode=filter_mode, fmt=fmt,
-            ), True
-        out = jax.lax.map(
-            lambda args: pwarp.pallas_remap(
-                args[0], args[1], fill=None, fill_mode=False,
-                interpret=interpret, filter_mode=filter_mode, fmt=fmt,
-            ),
-            (img_b, smap_b),
-        )
-        return out, True
-
-    _PALLAS_CORE_CACHE[key] = core
-    return core
-
-
-_PALLAS_CORE_CACHE: dict = {}
 
 
 def identity_map(size: tuple[int, int], dtype=jnp.float32) -> jax.Array:

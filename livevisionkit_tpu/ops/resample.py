@@ -8,8 +8,8 @@ Reference parity:
     (reference Vision/FrameTracker.cpp:140-146).
   * spatial gradients: OpenCV LK's Scharr 3x3 derivative.
 
-TPU-native notes: all of these are static-shape stencil ops that XLA fuses and
-tiles onto the VPU; convolutions use reflect padding done explicitly with
+All of these are static-shape stencil ops that XLA fuses; convolutions use
+reflect padding done explicitly with
 jnp.pad (mirroring OpenCV BORDER_REFLECT_101) since lax.conv only pads with
 zeros.
 """
@@ -35,11 +35,10 @@ def _sep_conv2d(img: jax.Array, kh: jax.Array, kw: jax.Array) -> jax.Array:
 
     img: (..., H, W); kh/kw: 1-D kernels applied along H / W.
 
-    TPU note: implemented as statically UNROLLED shift-and-add (tap-weighted
-    static slices of the padded image), not `lax.conv` — XLA lowers
-    single-channel NCHW convolutions to a catastrophically slow path on TPU
-    (measured ~7 ms per 1080p 5-tap pyr_down via conv vs ~0.1 ms via
-    shift-add); the unrolled form fuses into a handful of VPU passes.
+    Implemented as statically UNROLLED shift-and-add (tap-weighted static
+    slices of the padded image), not `lax.conv`: the unrolled form fuses
+    into a few elementwise passes.  Whether a convolution is faster on the
+    GPU is not measured.
     """
     import numpy as np
 
@@ -71,9 +70,9 @@ def gaussian_blur5(img: jax.Array) -> jax.Array:
 def _decimate2(img: jax.Array) -> jax.Array:
     """Take every 2nd row/column of trailing (H, W); output ceil(n/2).
 
-    NOT `img[..., ::2, ::2]`: a lane-strided slice costs ~0.3 ms at 480x270
-    on TPU (Mosaic relayout), while an even-size reshape + unit-index select
-    is free.  Odd extents are edge-padded by one first (the selected indices
+    An even-size reshape + unit-index select rather than
+    `img[..., ::2, ::2]` (the form chosen for the earlier accelerator's
+    layouts; not measured on the GPU).  Odd extents are edge-padded by one first (the selected indices
     are identical).
     """
     h, w = img.shape[-2], img.shape[-1]
@@ -159,9 +158,8 @@ def resize_corner_aligned(img: jax.Array, size: tuple[int, int]) -> jax.Array:
 def upsample_nearest_int(img: jax.Array, factor: int) -> jax.Array:
     """Replicate each pixel of trailing (H, W) into a factor x factor block.
 
-    Equivalent to nested jnp.repeat, but via broadcast+reshape — repeat on
-    the lane axis concat-materializes and relayouts (~ms at 1080p), the
-    broadcast form is free.
+    Equivalent to nested jnp.repeat, but via broadcast+reshape, which XLA
+    fuses into the consumer instead of materializing the repeats.
     """
     *lead, h, w = img.shape
     x = img[..., :, None, :, None]
@@ -174,7 +172,7 @@ def _upsample_linear_axis(img: jax.Array, axis: int, f: int) -> jax.Array:
     antialias=False), polyphase: per output phase r the source index and
     lerp weight are compile-time constants, so each phase is two unit
     slices + a lerp, interleaved back with stack+reshape (no conv, no
-    gather — jax.image.resize lowers this to a conv that is slow on TPU)."""
+    gather; jax.image.resize would lower this to a convolution)."""
     ndim = img.ndim
     axis = axis % ndim
     n = img.shape[axis]
@@ -215,9 +213,8 @@ def _median_network(n: int) -> tuple[tuple[int, int], ...]:
     """Compare-exchange network selecting the median of n (odd) values:
     Batcher's odd-even mergesort network (correct by the 0-1 principle),
     backward-pruned to the compare-exchanges that can influence output
-    n//2.  For n=25 this yields ~100 CEs vs XLA's serial variadic sort —
-    the difference between 4.2 ms and ~0.2 ms at the deblocker's working
-    resolution (measured, tools/profile_enhance.py)."""
+    n//2.  For n=25 this yields ~100 CEs in place of XLA's variadic
+    sort."""
 
     ces: list[tuple[int, int]] = []
 
@@ -251,9 +248,8 @@ def _median_network(n: int) -> tuple[tuple[int, int], ...]:
 
 def median_select(stack: jax.Array) -> jax.Array:
     """Median along axis 0 of an odd-length stack via a pruned
-    compare-exchange network — exact (each CE is a min/max pair), all VPU,
-    no sort.  `jnp.median` lowers to XLA's serial variadic sort on TPU,
-    which is ~20x slower at deblocker sizes."""
+    compare-exchange network — exact (each CE is a min/max pair), all
+    elementwise, no sort (`jnp.median` lowers to XLA's variadic sort)."""
     n = stack.shape[0]
     assert n % 2 == 1, "median_select needs an odd stack"
     vals = list(stack)
@@ -269,7 +265,8 @@ def median_blur(img: jax.Array, ksize: int) -> jax.Array:
 
     Used by the deblocker's smoothing pass (reference
     Filters/DeblockingFilter.cpp:73-77).  The ksize^2 shifted copies feed a
-    median-selection network (see median_select) — static shapes, pure VPU.
+    median-selection network (see median_select) — static shapes,
+    elementwise only.
     """
     r = ksize // 2
     x = jnp.pad(img, [(0, 0)] * (img.ndim - 2) + [(r, r), (r, r)], mode="reflect")
@@ -296,9 +293,8 @@ def avg_pool(img: jax.Array, block: int) -> jax.Array:
 
 def avg_pool_rw(img: jax.Array, block: int) -> jax.Array:
     """avg_pool via lax.reduce_window.  Numerically the same block mean,
-    but layout-robust: the reshape form forces a physical relayout when its
-    input is a pad/slice of another array (measured 2.5-3 ms of hidden
-    copies at 1080p in the deblocker, r3), while a windowed reduction
+    but layout-robust: the reshape form can force a layout copy when its
+    input is a pad/slice of another array, while a windowed reduction
     consumes any layout directly."""
     window = (1,) * (img.ndim - 2) + (block, block)
     s = jax.lax.reduce_window(img, 0.0, jax.lax.add, window, window, "VALID")

@@ -1,15 +1,15 @@
 """Distributed WarpField solve: feature-sharded CG over collectives.
 
 The reference's mesh solve is a single-threaded Eigen CG on the host
-(reference Vision/FrameTracker.cpp:274-276); this is its multi-chip
-TPU-native redesign (SURVEY.md §2.4/§7, BASELINE.md north star): the
+(reference Vision/FrameTracker.cpp:274-276); this is its multi-device
+redesign (SURVEY.md §2.4/§7, BASELINE.md north star): the
 feature constraints are sharded across a mesh axis, each device reduces its
 own A_i^T W_i A_i x contribution (a bilinear-sample gather + 4-tap
 scatter-add over ITS features), and one `psum` per matvec assembles the full
 normal operator — the Schur-complement structure of the problem: the mesh
 unknowns (2*17*17 floats) are tiny and replicated, the data term is what
-scales, so the collective moves only the reduced (2, Hm, Wm) tensor over
-ICI, never the features.
+scales, so the collective moves only the reduced (2, Hm, Wm) tensor
+between devices, never the features.
 
 The CG iterations themselves run replicated (identical on every device), so
 the ONLY communication is one all-reduce of the mesh-sized tensor per

@@ -1,15 +1,15 @@
-"""Multi-host scale-out: N hosts x M chips over ICI/DCN.
+"""Multi-host scale-out: N hosts x M devices.
 
 The reference is a single-process library (SURVEY.md §2.4 — no sockets, no
-MPI/NCCL anywhere in the tree), so this layer is a new TPU-native design.
+MPI/NCCL anywhere in the tree), so this layer is a new design.
 The model follows JAX's multi-controller SPMD recipe:
 
   * every host runs the SAME program and calls :func:`initialize` once;
   * one global ``Mesh(("stream", "tile"))`` spans all hosts' devices —
-    stream rows are laid out host-major, so a stream's devices are
-    ICI-local and the "stream" axis crosses DCN only between rows (no
-    cross-stream communication exists, so DCN carries nothing in steady
-    state);
+    stream rows are laid out host-major, so a stream's devices share a
+    host and the "stream" axis crosses hosts only between rows (no
+    cross-stream communication exists, so the host network carries nothing
+    in steady state);
   * each host decodes ONLY the streams whose mesh rows live on its local
     devices (:func:`local_stream_indices`) and contributes its shard of the
     global frame batch via ``jax.make_array_from_process_local_data``;
@@ -67,7 +67,7 @@ def make_global_mesh(n_streams: int, n_tiles: int = 1) -> Mesh:
 
     Streams are laid out host-major: with D local devices per host and
     T = n_tiles, each host owns D // T consecutive stream rows, keeping each
-    stream's tile ring on one host's ICI.
+    stream's tile ring on one host.
     """
     devices = np.asarray(jax.devices())
     need = n_streams * n_tiles

@@ -2,26 +2,15 @@
 
 Frame tensors shard their W axis across the "tile" mesh axis; warping needs
 source pixels up to the displacement bound beyond each shard's edges, so
-neighbouring shards exchange halo stripes with `lax.ppermute` (ICI
-neighbour traffic only — no all-gather), then each device remaps its own
+neighbouring shards exchange halo stripes with `lax.ppermute` (neighbour
+traffic only — no all-gather), then each device remaps its own
 output stripe locally.  This is the SURVEY.md §7 M5 design: the reference
-has no spatial parallelism at all (single GPU); on a pod slice this is how
-4K+ frames split across chips.
+has no spatial parallelism at all (single GPU); this is how 4K+ frames
+split across devices.
 
-Two local sampling back-ends (r5):
-
-  * the XLA gather path (`ops.remap.bilinear_sample` / `ops.easu.easu_remap`)
-    — the oracle, and the CPU/virtual-mesh path;
-  * the Pallas shift-select kernel (`ops.tpu_kernels.warp.pallas_remap`) run
-    PER-DEVICE on the halo-padded stripe *inside* `shard_map`.  This is the
-    only way to scale the kernel across tiles: a `pallas_call` under plain
-    pjit is an opaque custom call XLA cannot partition (it replicates or
-    all-gathers the operands instead — see parallel/streams.py).  Inside
-    shard_map each device runs its own kernel on local data, so no
-    partitioning is needed.  The stripe offset plus halo rebase is absorbed
-    by the kernel's own mean-shift machinery (ops/tpu_kernels/warp.py step 1
-    — the map is rebased into stripe coordinates and the resulting constant
-    displacement rides the dynamic-slice of the padded source).
+The local sampler is the XLA gather path (`ops.remap.bilinear_sample` /
+`ops.easu.easu_remap`) run per device on the halo-padded stripe inside
+`shard_map`.
 
 `filter_mode="easu"` gives the reference-parity filtered warp
 (WarpMesh.cpp:183-223 -> FSR.cl:362-403) on the sharded axis.
@@ -33,27 +22,12 @@ edge, mirroring the replicate-border behaviour at frame edges.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 from jax import lax, shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from livevisionkit_tpu.ops import remap as remap_ops
-
-
-def _use_pallas(h: int, local_w: int) -> bool:
-    """Trace-time backend choice for the per-device stripe warp; mirrors
-    ops.remap._pallas_eligible (LVK_REMAP=xla|pallas override, TPU + large
-    stripes by default; forced-on CPU runs the kernel interpreted so the
-    sharded dispatch is testable on the virtual mesh)."""
-    force = os.environ.get("LVK_REMAP", "").lower()
-    if force == "xla":
-        return False
-    if force == "pallas":
-        return True
-    return jax.default_backend() == "tpu" and h >= 256 and local_w >= 256
 
 
 def remap_sharded(
@@ -65,14 +39,11 @@ def remap_sharded(
     halo: int = 192,
     filter_mode: str = "bilinear",
     fmt=None,
-    margin: int = 32,
 ) -> jax.Array:
     """Backward-warp with W sharded over `axis` and ppermute halo exchange.
 
     filter_mode: "bilinear" or "easu" (the reference-parity default at
     WarpMesh-mirroring call sites; `fmt` drives EASU's luma selection).
-    `margin` is the Pallas kernel's residual bound (post per-stripe mean
-    shift) when the Pallas path is taken.
     """
     if filter_mode not in ("bilinear", "easu"):
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
@@ -85,13 +56,11 @@ def remap_sharded(
     assert w % n == 0, f"W={w} must divide the {axis} axis ({n})"
     local_w = w // n
     halo = min(halo, local_w)
-    pallas = _use_pallas(h, local_w)
-    interpret = jax.default_backend() != "tpu"
 
     def local_fn(img_l, map_l):
         idx = lax.axis_index(axis)
 
-        # Exchange edge stripes with both neighbours (ICI ring traffic).
+        # Exchange edge stripes with both neighbours (ring traffic).
         right_edge = img_l[:, :, local_w - halo :]
         left_edge = img_l[:, :, :halo]
         from_left = lax.ppermute(  # my left neighbour's right edge
@@ -119,34 +88,28 @@ def remap_sharded(
         # Local sampling coordinates into the halo-padded stripe.  Clamp to
         # the reachable range: beyond-halo samples degrade to halo-edge
         # replicate (they are out-of-spec displacements).
-        x0 = (idx * local_w - halo).astype(jnp.float32)
+        x0 = idx * local_w - halo
         ys = jnp.clip(map_l[0], 0.0, float(h - 1))
-        xs = jnp.clip(map_l[1], 0.0, float(w - 1)) - x0
-        xs = jnp.clip(xs, 0.0, float(local_w + 2 * halo - 1))
-        if pallas:
-            from livevisionkit_tpu.ops.tpu_kernels import warp as pwarp
-
-            # Per-device kernel on the local stripe: the map's constant
-            # +halo-and-stripe offset is removed by the kernel's mean-shift
-            # dynamic slice; margin only needs to cover the map's VARIATION
-            # around the stripe mean.
-            return pwarp.pallas_remap(
-                padded, jnp.stack([ys, xs]), fill=None, fill_mode=False,
-                margin=margin, interpret=interpret, filter_mode=filter_mode,
-                fmt=fmt,
-            )
+        xg = jnp.clip(map_l[1], 0.0, float(w - 1))
+        xs = jnp.clip(xg - x0.astype(jnp.float32), 0.0,
+                      float(local_w + 2 * halo - 1))
         if filter_mode == "easu":
             from livevisionkit_tpu.ops import easu as easu_ops
 
+            # EASU's tap set jumps where the coordinate crosses an integer,
+            # so it takes the GLOBAL coordinate and shifts only its integer
+            # part: `xg - x0` rounds in f32 where it grows (x0 < 0 on the
+            # first stripe) and can cross an integer the global warp does
+            # not.
             out = easu_ops.easu_remap(
-                padded, jnp.stack([ys, xs]), fmt=fmt, fill=None
+                padded, jnp.stack([ys, xg]), fmt=fmt, fill=None,
+                origin=(0, x0),
             )
             # easu_remap applied its nearest-neighbour border ring
             # (FSR.cl:385-397) against the STRIPE bounds; re-apply it
             # against the GLOBAL frame bounds so outer-stripe borders match
             # the unsharded oracle exactly (the stripe ring minus the global
             # ring is reachable only by beyond-halo displacements).
-            xg = jnp.clip(map_l[1], 0.0, float(w - 1))
             yf = jnp.floor(ys)
             xf = jnp.floor(xg)
             ring = ~(
@@ -154,7 +117,7 @@ def remap_sharded(
             )
             y0i = jnp.clip(yf.astype(jnp.int32), 0, h - 1)
             x0i = jnp.clip(
-                jnp.floor(xs).astype(jnp.int32), 0, local_w + 2 * halo - 1
+                xf.astype(jnp.int32) - x0, 0, local_w + 2 * halo - 1
             )
             nearest = padded[:, y0i, x0i]
             return jnp.where(ring, nearest, out)

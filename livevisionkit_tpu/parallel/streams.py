@@ -2,8 +2,8 @@
 
 The reference has no distributed computing at all (SURVEY.md §2.4): its only
 parallelism is a 3-thread pipeline (reference Filters/VideoFilter.cpp:62-209)
-and OpenCL async launches.  Scale-out here is therefore a new TPU-native
-design, with the reference defining only the per-stream numerics:
+and OpenCL async launches.  Scale-out here is therefore a new design, with
+the reference defining only the per-stream numerics:
 
   * **stream axis (DP)**: N independent videos processed as one vmapped
     step; state pytrees gain a leading stream dimension and shard across
@@ -12,17 +12,10 @@ design, with the reference defining only the per-stream numerics:
   * **tile axis (spatial sharding)**: full-resolution frame tensors (the
     delay queue, warp/remap) shard their W dimension across "tile".  The
     tracking path runs at detection resolution (tiny) and is replicated.
-    What pjit actually does to the remap depends on the dispatch
-    (ops/remap.py): the XLA gather path is partitionable — XLA inserts
-    collective-permutes limited to the warp's reach — but the Pallas warp
-    is an opaque custom call pjit CANNOT partition: XLA all-gathers (or
-    replicates) its operands around it, which defeats the tile axis
-    entirely.  On real multi-chip TPUs, tile-sharded warps must therefore
-    go through `parallel/spatial.py::remap_sharded`, which ppermute-
-    exchanges halos and runs the Pallas kernel PER DEVICE inside
-    `shard_map` (bilinear and the reference-parity EASU filter).  The CPU
-    virtual-mesh dryrun does not expose the pjit/pallas trap because
-    `_pallas_eligible` routes off-TPU calls to the XLA path.
+    The warps are XLA gathers, which pjit partitions like any other op.
+    `parallel/spatial.py::remap_sharded` is the explicit alternative: it
+    exchanges halos with ppermute and warps each stripe inside
+    `shard_map`.
 """
 
 from __future__ import annotations

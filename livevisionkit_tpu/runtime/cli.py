@@ -125,8 +125,8 @@ def _build_filter(name: str, opts: dict[str, str]):
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lvk",
-        description="TPU-native real-time video stabilization & enhancement "
-        "(LiveVisionKit-TPU)",
+        description="real-time video stabilization & enhancement "
+        "(a JAX rebuild of LiveVisionKit)",
     )
     p.add_argument(
         "input", nargs="?", help="input video file or capture-device index"
@@ -181,12 +181,6 @@ def make_parser() -> argparse.ArgumentParser:
         "-u", "--update-period", type=float, default=0.5,
         help="progress update period seconds",
     )
-    p.add_argument(
-        "--compile-cache", metavar="DIR",
-        help="persistent XLA compilation cache directory (default: "
-        "$LVK_COMPILE_CACHE if set); cuts cold-start compile from minutes "
-        "to seconds on repeat runs",
-    )
     return p
 
 
@@ -212,10 +206,6 @@ def main(argv: list[str] | None = None) -> int:
 
     argv = expand_profile(list(sys.argv[1:] if argv is None else argv))
     args = make_parser().parse_args(argv)
-
-    from livevisionkit_tpu.utils import compile_cache
-
-    compile_cache.enable(args.compile_cache)
 
     # SIGINT -> graceful stop: drain in-flight frames and finalize the output
     # file instead of dying mid-write (reference Application.cpp:45-52).
@@ -243,6 +233,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.input is None:
         make_parser().error("input is required (or use -C to list encoders)")
 
+    from livevisionkit_tpu.utils import compile_cache
+
+    compile_cache.enable_default()
     filters = [_build_filter(*_parse_filter_spec(s)) for s in args.filters]
     filt = CompositeFilter(filters=tuple(filters)) if filters else CompositeFilter(
         filters=()

@@ -8,7 +8,7 @@ Y800/BGR/RGBA (`DirectIngest`) — uploading planes in bulk, upsampling chroma
 to full resolution, and merging to the packed working format
 (upload_planes/split/merge, FrameIngest.cpp:145-217+).
 
-TPU-native: the host only reshapes/strides the encoded bytes (numpy views);
+Design: the host only reshapes/strides the encoded bytes (numpy views);
 every pixel transform (normalization, chroma up/down-sampling, plane merge)
 runs on device in one fused jitted program per format — the `device_put` is
 the single upload the reference achieves with its chain-start detection.

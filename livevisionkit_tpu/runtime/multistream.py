@@ -6,7 +6,7 @@ pipeline per filter instance (reference Filters/VideoFilter.cpp:62-209);
 serving N videos means N independent processes/threads with no shared
 batching.  Here the N streams batch into ONE vmapped+sharded step over a
 `Mesh` "stream" axis (parallel/streams.py), so a chip (or a pod slice) serves
-all of them with one program launch per frame tick — the TPU-native shape of
+all of them with one program launch per frame tick — the batched shape of
 BASELINE config 5 (8x1080p60 streams).
 
 Design:
@@ -39,7 +39,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from livevisionkit_tpu.data.frame import Frame
 from livevisionkit_tpu.filters.base import FrameSpec, VideoFilter
 from livevisionkit_tpu.types import PixelFormat
-from livevisionkit_tpu.utils.profiling import Stopwatch
+from livevisionkit_tpu.utils.profiling import Stopwatch, compile_timed
 
 
 @dataclass
@@ -50,6 +50,10 @@ class MultiStreamStats:
     stalls: int = 0  # bubbles injected for slow (not ended) streams
     batch_time: Stopwatch = field(default_factory=Stopwatch)
     per_stream_out: list = field(default_factory=list)
+    # Set-up cost of the batched step (trace + compile, or a persistent-cache
+    # load) and XLA's memory analysis of it.
+    compile_seconds: float | None = None
+    step_memory: object = None
 
     @property
     def fps_aggregate(self) -> float:
@@ -247,11 +251,15 @@ def stream_multi(
                 if batch_sharding is not None
                 else jnp.asarray(batch)
             )
-            states, out = step(
+            args = (
                 states, dev, jnp.asarray(tss, jnp.float32),
-                jnp.asarray(lives, jnp.bool_),
-                jnp.asarray(eof, jnp.bool_),
+                jnp.asarray(lives, jnp.bool_), jnp.asarray(eof, jnp.bool_),
             )
+            if stats.compile_seconds is None:
+                step, stats.compile_seconds, stats.step_memory = (
+                    compile_timed(step, *args)
+                )
+            states, out = step(*args)
             stats.batches += 1
             pending.append(out)
             drain(block_all=False)

@@ -8,7 +8,7 @@ This is also the measurement harness bench.py uses: scan-length differencing
 isolates true per-frame device time from dispatch/readback latency.
 
 The reference has no equivalent (its throughput mode is the same 3-thread
-pipeline); this is a TPU-native addition enabled by the functional step.
+pipeline); this is an addition enabled by the functional step.
 """
 
 from __future__ import annotations

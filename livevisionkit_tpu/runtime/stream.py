@@ -6,7 +6,7 @@ Reference parity: ``VideoFilter::stream`` (reference Filters/VideoFilter
 draining) — and the CLI driver ``VideoProcessor::run`` (reference
 Modules/VideoEditor/VideoProcessor.cpp:148-230).
 
-TPU-native design: the thread pipeline maps onto JAX's ASYNC DISPATCH.
+Design: the thread pipeline maps onto JAX's ASYNC DISPATCH.
 
   * a reader thread keeps a bounded queue of decoded host frames
     (the reference's 15-frame input queue);
@@ -38,7 +38,12 @@ import numpy as np
 from livevisionkit_tpu.data.frame import Frame
 from livevisionkit_tpu.filters.base import FrameSpec, VideoFilter
 from livevisionkit_tpu.types import PixelFormat
-from livevisionkit_tpu.utils.profiling import Stopwatch, frame_scope, trace_scope
+from livevisionkit_tpu.utils.profiling import (
+    Stopwatch,
+    compile_timed,
+    frame_scope,
+    trace_scope,
+)
 
 
 @dataclass
@@ -55,6 +60,10 @@ class StreamStats:
     # stabilizer's algorithmic delay (predictive_samples frames of delay
     # queue) is a separate, deterministic content delay — not included.
     latencies: list = field(default_factory=list)
+    # Set-up cost of the fused step (trace + compile, or a persistent-cache
+    # load) and XLA's memory analysis of it; unset in profile mode.
+    compile_seconds: float | None = None
+    step_memory: object = None
 
     @property
     def fps(self) -> float:
@@ -260,7 +269,12 @@ def stream(
                     outf = finish_j(frame)
                     out = (outf.pixels, outf.timestamp, outf.valid)
                 else:
-                    state, out = step(state, raw_dev, jnp.float32(ts))
+                    ts_dev = jnp.float32(ts)
+                    if stats.compile_seconds is None:
+                        step, stats.compile_seconds, stats.step_memory = (
+                            compile_timed(step, state, raw_dev, ts_dev)
+                        )
+                    state, out = step(state, raw_dev, ts_dev)
             pending.append((out, time.perf_counter()))
             stats.frames_in += 1
             drain(block_all=False)

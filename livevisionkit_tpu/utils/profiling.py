@@ -5,7 +5,7 @@ ring-buffer of frame times with average/deviation, GPU-synced when
 profiling (`sync_gpu` = cv::ocl::finish(), Stopwatch.cpp:127-131) — wrapped
 around every VideoFilter::apply (Filters/VideoFilter.cpp:46-58).
 
-TPU equivalent of "sync to measure": `jax.block_until_ready` on the step
+The JAX equivalent of "sync to measure": `jax.block_until_ready` on the step
 output before stopping the clock.  In throughput mode the runtime does NOT
 sync per frame (async dispatch pipelines host and device); the stopwatch
 then measures wall-clock inter-frame latency instead, which is the honest
@@ -66,6 +66,14 @@ class Stopwatch:
         return self.deviation() * 1000.0
 
 
+def compile_timed(jitted, *args):
+    """AOT-compile a jitted function for `args`: (compiled, seconds, XLA's
+    memory analysis).  The compile is the set-up cost a first call hides."""
+    t0 = time.perf_counter()
+    compiled = jitted.lower(*args).compile()
+    return compiled, time.perf_counter() - t0, compiled.memory_analysis()
+
+
 class TickTimer:
     """Delta/tick-count timer with an optional fixed timestep.
 
@@ -104,7 +112,7 @@ class TickTimer:
 # ---------------------------------------------------------------------------
 # Hierarchical device tracing (reference ScopedProfiler / LVK_PROFILE,
 # Modules/OBS-Plugin/Utility/ScopedProfiler.cpp:26-37: RAII scopes feeding a
-# hierarchical profiler).  TPU equivalent: jax.profiler traces — scopes
+# hierarchical profiler).  JAX equivalent: jax.profiler traces — scopes
 # become named trace annotations nested inside a per-frame step annotation,
 # viewable in TensorBoard/Perfetto alongside the XLA device timeline.
 # ---------------------------------------------------------------------------

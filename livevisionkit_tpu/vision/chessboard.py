@@ -38,11 +38,20 @@ def chess_response(gray: jax.Array) -> jax.Array:
     )  # (16, H, W)
     n = len(_RING5)
     ang = 2.0 * jnp.pi * jnp.arange(n) / n
-    # Circular harmonics of the ring.
-    c2 = jnp.tensordot(jnp.cos(2 * ang).astype(g.dtype), ring, axes=(0, 0))
-    s2 = jnp.tensordot(jnp.sin(2 * ang).astype(g.dtype), ring, axes=(0, 0))
-    c1 = jnp.tensordot(jnp.cos(ang).astype(g.dtype), ring, axes=(0, 0))
-    s1 = jnp.tensordot(jnp.sin(ang).astype(g.dtype), ring, axes=(0, 0))
+    # Circular harmonics of the ring (full f32: no TF32 contraction).
+    _HI = jax.lax.Precision.HIGHEST
+    c2 = jnp.tensordot(
+        jnp.cos(2 * ang).astype(g.dtype), ring, axes=(0, 0), precision=_HI
+    )
+    s2 = jnp.tensordot(
+        jnp.sin(2 * ang).astype(g.dtype), ring, axes=(0, 0), precision=_HI
+    )
+    c1 = jnp.tensordot(
+        jnp.cos(ang).astype(g.dtype), ring, axes=(0, 0), precision=_HI
+    )
+    s1 = jnp.tensordot(
+        jnp.sin(ang).astype(g.dtype), ring, axes=(0, 0), precision=_HI
+    )
     h2 = jnp.sqrt(c2 * c2 + s2 * s2)  # X-corner energy
     h1 = jnp.sqrt(c1 * c1 + s1 * s1)  # edge energy (suppress)
     mean_dev = jnp.abs(ring - ring.mean(axis=0)).mean(axis=0)

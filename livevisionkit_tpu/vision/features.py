@@ -6,9 +6,9 @@ Reference parity: ``lvk::FeatureDetector`` (reference Vision/FeatureDetector
 one maximal corner per cell (:138-157), plus a spatial distribution-quality
 measure (:174, SpatialMap.tpp:589-625).
 
-TPU-native design (the reference's CPU keypoint loop inverted):
-  * FAST-9/16 is evaluated **densely at every pixel** as 16 shifted compares
-    on the VPU; the contiguous-arc test uses log-composed rolls (4 AND-rolls
+Design (the reference's CPU keypoint loop inverted):
+  * FAST-9/16 is evaluated **densely at every pixel** as 16 shifted
+    compares; the contiguous-arc test uses log-composed rolls (4 AND-rolls
     instead of 16x9 tests).  No keypoint lists exist at any point.
   * The suppression grid IS the output: a (grid_h*grid_w)-slot feature set
     produced by a per-cell argmax (reshape + reduce).  Empty cells are
@@ -18,17 +18,16 @@ TPU-native design (the reference's CPU keypoint loop inverted):
 
 The FAST corner *score* here is the summed ring excess beyond the threshold
 (bright and dark arcs), not OpenCV's exact max-threshold score; it only
-ranks corners within a cell, and this variant is branch-free and
-VPU-friendly.
+ranks corners within a cell, and this variant is branch-free.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.config import FeatureDetectorSettings
+from livevisionkit_tpu.utils import pytree
 
 # Bresenham radius-3 circle, circular order, as (dy, dx).
 _RING = (
@@ -37,7 +36,7 @@ _RING = (
 )
 
 
-class FeatureGrid(struct.PyTreeNode):
+class FeatureGrid(pytree.PyTreeNode):
     """Fixed-capacity feature set: one slot per suppression-grid cell."""
 
     points: jax.Array  # (G, 2) float32 (x, y) at detection resolution

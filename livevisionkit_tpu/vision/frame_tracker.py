@@ -8,7 +8,7 @@ uniform enough :37,171), inlier ratio exposed as tracking stability
 (:179,461-464), and `nullopt` on low features/uniformity/matches
 (:128-132,150-154).
 
-TPU-native design: the tracker is a pure function over a carried
+Design: the tracker is a pure function over a carried
 ``TrackerState`` pytree — previous pyramid + previous feature grid + detector
 servo thresholds + PRNG key.  "No motion" is not an optional: the result
 carries an `ok` flag and an identity motion, so the whole step stays
@@ -21,18 +21,18 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.config import FrameTrackerSettings
 from livevisionkit_tpu.models.warp_field import WarpField
 from livevisionkit_tpu.ops import resample
+from livevisionkit_tpu.utils import pytree
 from livevisionkit_tpu.vision import features as features_mod
 from livevisionkit_tpu.vision import mesh_motion, optical_flow, ransac
 from livevisionkit_tpu.vision.features import FeatureGrid
 from livevisionkit_tpu.vision.optical_flow import Pyramid
 
 
-class TrackResult(struct.PyTreeNode):
+class TrackResult(pytree.PyTreeNode):
     motion: WarpField  # motion field at settings.motion_resolution
     stability: jax.Array  # inlier ratio in [0, 1] (tracking_stability)
     uniformity: jax.Array  # spatial spread quality of tracked points
@@ -41,7 +41,7 @@ class TrackResult(struct.PyTreeNode):
     points_valid: jax.Array  # (G,) tracked mask (debug/test-mode overlays)
 
 
-class TrackerState(struct.PyTreeNode):
+class TrackerState(pytree.PyTreeNode):
     pyramid: Pyramid
     features: FeatureGrid
     thresholds: jax.Array

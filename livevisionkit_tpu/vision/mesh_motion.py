@@ -8,7 +8,7 @@ checkerboard local-rigidity constraints (`generate_mesh_constraints`,
 :380-457) — solved with Eigen::LeastSquaresConjugateGradient warm-started
 from the previous mesh (:274-276), followed by an inlier check (:278-320).
 
-TPU-native design: the sparse system is never materialized.  Conjugate
+Design: the sparse system is never materialized.  Conjugate
 gradient runs on the normal equations with a **matrix-free operator**:
 
   * feature term: bilinear *sampling* of the mesh at the tracked points
@@ -18,7 +18,7 @@ gradient runs on the normal equations with a **matrix-free operator**:
   * temporal term: identity.
 
 Each CG iteration is a handful of (2, 17, 17)-sized tensor ops + one
-(N, 4) gather/scatter — microseconds on the VPU, and the whole solve jits
+(N, 4) gather/scatter, and the whole solve jits
 into the per-frame step (the reference pays a CPU round-trip here, SURVEY
 §3.2).  Robustness to outlier matches comes from IRLS reweighting with the
 same truncated-quadratic kernel as the RANSAC stage.
@@ -30,7 +30,7 @@ constraint row costs its CPU solver assembly time and triplets.  A dense
 first-difference stencil is the degenerate-free superset of that pattern
 (every edge constrained, same null space) and costs the SAME two tensor
 ops per CG iteration here regardless of density — thinning would save
-nothing on a VPU and only weaken the regularization, so the sparsity
+nothing and only weaken the regularization, so the sparsity
 pattern is deliberately not reproduced.
 
 Convention: the mesh is solved in NODE space (Hm+1? no — (Hm, Wm) nodes
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from livevisionkit_tpu.config import MeshMotionSettings
 from livevisionkit_tpu.models.warp_field import WarpField
@@ -80,7 +81,7 @@ def _sample(mesh: jax.Array, idx: jax.Array, w4: jax.Array) -> jax.Array:
     """A x: sample (2, Hm*Wm) mesh at features -> (N, 2) (dy, dx)."""
     flat = mesh.reshape(2, -1)
     vals = flat[:, idx]  # (2, N, 4)
-    return jnp.einsum("cnk,nk->nc", vals, w4)
+    return jnp.einsum("cnk,nk->nc", vals, w4, precision=lax.Precision.HIGHEST)
 
 
 def _scatter(res: jax.Array, idx: jax.Array, w4: jax.Array, nodes: int) -> jax.Array:
@@ -132,7 +133,7 @@ def estimate(
       * ``settings.temporal_weight`` toward ``global_fit + prev_local``
         (frame-to-frame coherence of the LOCAL deformation — bounds flicker
         on weakly-constrained regions).  The reference pulls toward the raw
-        previous mesh; pulling only the local residual is the TPU redesign's
+        previous mesh; pulling only the local residual is this design's
         refinement: per-frame camera shake is white noise that the global
         fit already tracks, while the local (parallax/structure) part is
         what persists between frames — so the pull damps solve noise

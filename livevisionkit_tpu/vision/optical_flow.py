@@ -4,7 +4,7 @@ Reference parity: cv::SparsePyrLKOpticalFlow as used by FrameTracker
 (reference Vision/FrameTracker.cpp:33-35,140-146): 11x11 window, 3 pyramid
 levels, 5 iterations, with per-feature tracked/lost status.
 
-TPU-native design: the reference reads keypoints back to host vectors and
+Design: the reference reads keypoints back to host vectors and
 lets OpenCV iterate per feature on the GPU.  Here the whole solver is one
 fixed-shape tensor program batched over the feature axis:
 
@@ -24,33 +24,22 @@ fixed-shape tensor program batched over the feature axis:
     shape as the input, so the whole thing jits into the per-frame step.
 
 Window sampling is gather-free: selecting `taps` consecutive rows/columns
-per feature is a dense one-hot einsum on the MXU (see _one_hot_selectors).
+per feature is a dense one-hot einsum (see _one_hot_selectors), pinned at
+HIGHEST precision so the selection reproduces pixel values exactly.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax import lax
 
 from livevisionkit_tpu.config import OpticalFlowSettings
 from livevisionkit_tpu.ops import resample
+from livevisionkit_tpu.utils import pytree
 
 
-def _use_pallas_lk() -> bool:
-    """Opt-in Pallas whole-pyramid LK kernel (ops/tpu_kernels/lk.py),
-    LVK_LK=pallas.  Measured on TPU v5e the XLA formulation below is FASTER
-    (0.47 ms vs 0.56-0.67 ms at 510 features, 480x270, 3 levels): XLA's
-    fusion already keeps the one-hot/strip intermediates on-chip, and the
-    kernel's N-batched (taps, W) x (W, taps) MXU contractions don't beat
-    XLA's batched einsum.  The kernel is kept as a tested alternative and a
-    starting point for future Mosaic work."""
-    return os.environ.get("LVK_LK", "").lower() == "pallas"
-
-
-class Pyramid(struct.PyTreeNode):
+class Pyramid(pytree.PyTreeNode):
     """Per-frame image pyramid (the tracking state carried between frames)."""
 
     levels: tuple[jax.Array, ...]  # (H/2^l, W/2^l) luma, level 0 first
@@ -63,10 +52,10 @@ class Pyramid(struct.PyTreeNode):
 def _one_hot_selectors(base: jax.Array, taps: int, extent: int) -> jax.Array:
     """(N,) integer starts -> (N, taps, extent) one-hot selection tensors.
 
-    The TPU-native replacement for window gathers: selecting `taps`
-    consecutive rows/columns per feature becomes a dense one-hot matmul on
-    the MXU.  XLA's gather lowers to ~10 ns/element on TPU; the equivalent
-    einsum runs at matrix-unit speed (measured ~60x faster for LK).
+    The gather-free form of window extraction: selecting `taps`
+    consecutive rows/columns per feature becomes a dense one-hot matmul.
+    (It was chosen where gathers were slow; whether a plain gather is
+    faster on the GPU is not measured.)
     """
     pos = jax.lax.broadcasted_iota(jnp.int32, (1, 1, extent), 2)
     want = base[:, None, None] + jax.lax.broadcasted_iota(
@@ -90,22 +79,18 @@ def _extract_blocks(
 ) -> jax.Array:
     """(C, taps, taps, N) integer-aligned blocks, gather-free — N LAST.
 
-    Layout note (r5): all downstream window math (bilinear shift, Scharr,
+    Layout note: all downstream window math (bilinear shift, Scharr,
     residual/gradient reductions) is elementwise over windows whose spatial
-    extent is ~12 — putting that on the 128-lane axis ran the whole
-    iteration loop at <10% VPU utilization, which is why pyramid levels 1/2
-    cost almost as much as level 0 (measured 1.87/1.40/1.19 ms at S=8
-    despite 4x/16x smaller images: the cost is N-driven).  With N on the
-    lane axis (510 features ~= 4 full lane groups) the window tensors
-    vectorize fully.
+    extent is ~12, so the feature axis N goes last (the minor, contiguous
+    dimension) and the window tensors vectorize over features.
 
-    Rows: one one-hot einsum (N*taps, H) @ (H, W) on the MXU.  Columns in two
+    Rows: one one-hot einsum (N*taps, H) @ (H, W).  Columns in two
     stages — a coarse one-hot-masked reduction picks the 2 adjacent
     `_COL_BLOCK`-wide column blocks containing the window, then a fine
     one-hot einsum selects within the 2-block patch.  The two-stage form
     replaces the W-wide one-hot materialization and the N-batched
-    (taps, W) @ (W, taps) matmul with W-independent equivalents (~25% off
-    the whole LK solve at 480x270).  Selection indices clamp to [0, w-1]
+    (taps, W) @ (W, taps) matmul with W-independent equivalents.
+    Selection indices clamp to [0, w-1]
     per tap (replicate padding), identically to the single-stage path.
     """
     c, h, w = imgs.shape
@@ -115,7 +100,8 @@ def _extract_blocks(
     nb = -(-w // blk)
     rows = _one_hot_selectors(base_xy[:, 1], taps, h)  # (N, t, H)
     strips = jnp.einsum(
-        "nih,chw->nciw", rows, imgs, preferred_element_type=jnp.float32
+        "nih,chw->nciw", rows, imgs, preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
     )  # (N, C, t, W)
     if nb * blk != w:
         strips = jnp.pad(strips, ((0, 0), (0, 0), (0, 0), (0, nb * blk - w)))
@@ -144,7 +130,8 @@ def _extract_blocks(
     pos = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 2 * blk), 2)
     sel = (pos == want).astype(jnp.float32)  # (N, t, 2*blk)
     return jnp.einsum(
-        "nciw,njw->cijn", patch, sel, preferred_element_type=jnp.float32
+        "nciw,njw->cijn", patch, sel, preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
     )
 
 
@@ -190,10 +177,9 @@ def _track_level(
 
     Returns (flow, good, min_eig): flow (N, 2) refined at this scale.
 
-    All N features are processed as ONE tensor program: window sampling is a
-    single (N, win, win) gather per tap instead of per-feature gathers under
-    vmap — XLA lowers the former to a fast flat gather and the latter to a
-    serialized loop (measured 64 ms -> <1 ms at N=510 on TPU v5e).
+    All N features are processed as ONE tensor program: window sampling is
+    one batched extraction for all features instead of per-feature
+    gathers under vmap, which XLA can lower to a serialized loop.
     """
     win = settings.window_size
     area = win * win
@@ -230,12 +216,9 @@ def _track_level(
     # Statically unrolled Gauss-Newton iterations (unrolling lets XLA fuse
     # the solve arithmetic across iterations instead of looping a while-op).
     # ---- iteration windows from ONE cached block per feature -------------
-    # (r5) Each Gauss-Newton iteration used to re-run the full image-wide
-    # extraction (one-hot row einsum over H + two-stage column select) at
-    # the sub-pixel-updated positions — 5 of the 6 extraction passes per
-    # level, and the reason levels 1/2 cost almost as much as level 0
-    # (measured 1.9/1.4/1.2 ms at S=8: the cost is N-driven, not
-    # image-driven).  Instead, ONE extraction fetches a (taps+2m)-wide
+    # Re-running the image-wide extraction (one-hot row einsum over H +
+    # two-stage column select) at every iterate's sub-pixel position would
+    # be 5 of the 6 extraction passes per level.  Instead, ONE extraction fetches a (taps+2m)-wide
     # block around the warm-start iterate, and the iterations re-select
     # their window INSIDE the cached block with small batched one-hot
     # matmuls (~4 MMAC/iter vs the image-wide N*taps*H*W).  Deviation from
@@ -261,9 +244,8 @@ def _track_level(
         frac_j = rel - qi
         # Shift-select, not one-hot matmuls: the in-block offsets take only
         # 2m+1 values, so the window is an unrolled masked sum of STATIC
-        # slices (sublane shifts; N broadcasts over the lane axis).  The
-        # einsum form would be N tiny batched (t,ext)@(ext,ext) matmuls —
-        # terrible MXU utilization at ~12x20 per batch.
+        # slices (N broadcasts over the minor axis).  The einsum form would
+        # be N tiny batched (t,ext)@(ext,ext) matmuls.
         rowsel = jnp.zeros((taps, ext, qi.shape[0]), jnp.float32)
         for sft in range(2 * m_it + 1):
             mk = (qi[:, 1] == sft).astype(jnp.float32)
@@ -313,21 +295,6 @@ def track(
         if init_flow is None
         else init_flow.astype(pts.dtype) / scale_top
     )
-    if _use_pallas_lk():
-        from livevisionkit_tpu.ops.tpu_kernels import lk as lk_kernel
-
-        flow0 = (
-            jnp.zeros_like(pts) if init_flow is None
-            else init_flow.astype(pts.dtype)
-        )
-        flow, good = lk_kernel.lk_track(
-            prev.levels, nxt.levels, pts, flow0,
-            settings.window_size, settings.iterations,
-            settings.min_eigen_threshold,
-            interpret=jax.default_backend() != "tpu",
-        )
-        return pts + flow, valid & good
-
     tracked = valid
     for lvl in range(top, -1, -1):
         s = 2.0**lvl

@@ -7,7 +7,7 @@ hysteresis + EMA of the drift error against the corrective limits (:94-132),
 corrections clamped into the corrective margins (:121-125), and a
 predictive_samples output delay (:149-152).
 
-TPU-native design: positions are WarpFields (tensor algebra), the window is
+Design: positions are WarpFields (tensor algebra), the window is
 a StreamBuffer whose Gaussian convolution is a single rolled-weight
 tensordot, and the sigma servo is three scalar carries — the whole smoother
 is O(window * field) tensor math inside the jitted step.  During warm-up
@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from livevisionkit_tpu.config import PathSmootherSettings
 from livevisionkit_tpu.data.stream_buffer import StreamBuffer
 from livevisionkit_tpu.models.warp_field import WarpField
+from livevisionkit_tpu.utils import pytree
 
 
-class SmootherState(struct.PyTreeNode):
+class SmootherState(pytree.PyTreeNode):
     positions: StreamBuffer  # window of integrated path positions (WarpField)
     position: WarpField  # running integrated camera position
     smoothing: jax.Array  # sigma servo factor in [0, 1] (1 = max smoothing)

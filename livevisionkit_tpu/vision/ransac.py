@@ -7,7 +7,7 @@ model only chosen when the feature distribution is sufficiently uniform
 (FrameTracker.cpp:37,171), and the inlier ratio exposed as the tracking
 stability (:179,461-464).
 
-TPU-native design: OpenCV's sequential USAC loop becomes an
+Design: OpenCV's sequential USAC loop becomes an
 embarrassingly-parallel batch — K minimal solvers (4-point DLT for the
 homography, 2-point similarity) run as ONE batched unrolled Gauss-Jordan
 elimination, all K x N residuals evaluate as one matmul-shaped broadcast,
@@ -22,13 +22,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax import lax
 
 from livevisionkit_tpu.config import MotionEstimationSettings
 from livevisionkit_tpu.models.homography import Homography, dlt4
+from livevisionkit_tpu.utils import pytree
 
 
-class GlobalMotion(struct.PyTreeNode):
+class GlobalMotion(pytree.PyTreeNode):
     homography: Homography
     inliers: jax.Array  # (N,) bool
     stability: jax.Array  # scalar inlier ratio in [0, 1]
@@ -44,7 +45,7 @@ def _transfer_errors_sq(h: jax.Array, src: jax.Array, dst: jax.Array) -> jax.Arr
     """Squared forward-transfer error |H(src) - dst|^2. h: (..., 3, 3)."""
     ones = jnp.ones(src.shape[:-1] + (1,), src.dtype)
     ph = jnp.concatenate([src, ones], axis=-1)  # (N, 3)
-    out = jnp.einsum("...ij,nj->...ni", h, ph)
+    out = jnp.einsum("...ij,nj->...ni", h, ph, precision=lax.Precision.HIGHEST)
     denom = out[..., 2]
     safe = jnp.where(jnp.abs(denom) > 1e-8, denom, 1e-8)
     proj = out[..., :2] / safe[..., None]
@@ -110,10 +111,15 @@ def _normalization(pts: jax.Array, w: jax.Array) -> jax.Array:
     )
 
 
+def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
+    """f32 matrix product at full precision: the normal equations lose the
+    fit in TF32's 10-bit mantissa."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
+
 def _inv3(m: jax.Array) -> jax.Array:
     """Closed-form 3x3 inverse (adjugate/det) — avoids linalg.inv's
-    sequential LU, which is disproportionately slow for a single tiny
-    matrix on TPU."""
+    sequential LU for a single tiny matrix."""
     adj = jnp.stack([
         jnp.stack([m[1,1]*m[2,2]-m[1,2]*m[2,1], m[0,2]*m[2,1]-m[0,1]*m[2,2], m[0,1]*m[1,2]-m[0,2]*m[1,1]]),
         jnp.stack([m[1,2]*m[2,0]-m[1,0]*m[2,2], m[0,0]*m[2,2]-m[0,2]*m[2,0], m[0,2]*m[1,0]-m[0,0]*m[1,2]]),
@@ -128,8 +134,8 @@ def _weighted_dlt(src: jax.Array, dst: jax.Array, w: jax.Array) -> jax.Array:
     t_src = _normalization(src, w)
     t_dst = _normalization(dst, w)
     ones = jnp.ones((src.shape[0], 1), src.dtype)
-    sn = jnp.concatenate([src, ones], axis=-1) @ t_src.T
-    dn = jnp.concatenate([dst, ones], axis=-1) @ t_dst.T
+    sn = _mm(jnp.concatenate([src, ones], axis=-1), t_src.T)
+    dn = _mm(jnp.concatenate([dst, ones], axis=-1), t_dst.T)
     x, y = sn[:, 0], sn[:, 1]
     u, v = dn[:, 0], dn[:, 1]
     z = jnp.zeros_like(x)
@@ -138,19 +144,16 @@ def _weighted_dlt(src: jax.Array, dst: jax.Array, w: jax.Array) -> jax.Array:
     r2 = jnp.stack([z, z, z, x, y, o, -v * x, -v * y, -v], axis=-1)
     a = jnp.concatenate([r1, r2], axis=0)  # (2N, 9)
     ww = jnp.concatenate([w, w], axis=0)
-    m = (a * ww[:, None]).T @ a  # (9, 9) PSD normal matrix
-    # h33=1 gauge: Cholesky-solve the 8x8 normal block instead of the
-    # smallest eigenvector.  eigh on TPU lowers to iterative QR — measured
-    # ~0.11 ms per 9x9 call even batched over 8 streams (r5), which made
-    # the 4-round IRLS 1.2 of RANSAC's 1.55 ms; cho_solve of the
-    # gauge-fixed system measures 0.005 ms (~20x) and is numerically
+    m = _mm((a * ww[:, None]).T, a)  # (9, 9) PSD normal matrix
+    # h33=1 gauge: Cholesky-solve the 8x8 normal block instead of taking
+    # the smallest eigenvector (eigh is an iterative solver); numerically
     # equivalent for the near-identity homographies the stabilizer fits
     # (Hartley normalization keeps the normalized h33 well away from 0).
     # A singular system yields NaNs and irls_step keeps the previous model.
     f = jax.scipy.linalg.cho_factor(m[:8, :8])
     h8 = jax.scipy.linalg.cho_solve(f, -m[:8, 8])
     h = jnp.concatenate([h8, jnp.ones((1,), h8.dtype)]).reshape(3, 3)
-    h_full = _inv3(t_dst) @ h @ t_src
+    h_full = _mm(_mm(_inv3(t_dst), h), t_src)
     return h_full / h_full[2, 2]
 
 

@@ -3,7 +3,7 @@
 // Reference parity: the reference's ingest + pipeline layers are native C++
 // (Modules/OBS-Plugin/Interop/FrameIngest.cpp bulk plane codecs;
 // LiveVisionKit/Filters/VideoFilter.cpp:62-209 bounded-queue pipeline).
-// This library provides the host-side equivalents for the TPU runtime:
+// This library provides the host-side equivalents for the JAX runtime:
 //
 //   * packed->planar pixel-format converters (YUY2/UYVY deinterleave, NV12
 //     chroma split, BGR HWC->planar split) written as tight -O3 loops the

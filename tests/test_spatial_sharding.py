@@ -71,42 +71,3 @@ def test_sharded_remap_easu_matches_global(rng):
         img, smap, _mesh(), fill=0.25, halo=48, filter_mode="easu"
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
-
-
-@pytest.mark.parametrize("filter_mode", ["bilinear", "easu"])
-def test_sharded_remap_pallas_matches_solo_kernel(rng, filter_mode, monkeypatch):
-    """The per-device Pallas stripe kernel inside shard_map (interpret mode
-    on the virtual mesh) == the solo Pallas kernel on the full frame.  This
-    is the path real multi-chip TPUs run: pallas_call cannot be partitioned
-    by pjit, so the kernel must run per-device on pre-exchanged stripes."""
-    from livevisionkit_tpu.ops.tpu_kernels import warp as pwarp
-
-    monkeypatch.setenv("LVK_REMAP", "pallas")
-    img = jnp.stack([fixtures.make_texture(96, 512, rng) for _ in range(3)])
-    h = Homography.from_similarity(
-        jnp.float32(1.001), jnp.float32(0.003), jnp.float32(9.0),
-        jnp.float32(-4.0),
-    )
-    smap = h.sample_map((96, 512))
-    solo = pwarp.pallas_remap(
-        img, smap, fill=0.25, interpret=True, filter_mode=filter_mode
-    )
-    got = spatial.remap_sharded(
-        img, smap, _mesh(), fill=0.25, halo=48, filter_mode=filter_mode
-    )
-    # Both kernels share the shift-select machinery; they differ only in the
-    # mean-shift frame (global vs per-stripe), which offsets the
-    # separability linearization by an integer per stripe.  Bilinear is
-    # continuous in the sample position, so the difference is float-tail
-    # (measured <=2 isolated pixels at ~3e-4).  EASU has small value
-    # discontinuities across tap-row boundaries, so the ~0.003 px
-    # linearization offset flips ~0.3% of pixels' tap sets — the same
-    # deviation class (and the same bounds) as the solo kernel vs its XLA
-    # oracle (test_pallas_warp.py:308).
-    err = np.abs(np.asarray(got) - np.asarray(solo))
-    if filter_mode == "bilinear":
-        assert err.max() < 5e-4, err.max()
-    else:
-        assert np.quantile(err, 0.999) < 2e-2, np.quantile(err, 0.999)
-        assert err.mean() < 1e-3, err.mean()
-        assert err.max() < 0.1, err.max()

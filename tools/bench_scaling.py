@@ -3,27 +3,27 @@
 BASELINE.md asks for >= 80 % frames/s scaling efficiency; the reference has
 no multi-stream mode at all (its VideoFilter::stream is one stream,
 reference Filters/VideoFilter.cpp:62-209), so this harness defines the
-measurement for the TPU engine's two scale-out regimes:
+measurement for the engine's two scale-out regimes:
 
   * default (real chip): S streams time-multiplexed on ONE device as a
     vmapped batch step — measures batching efficiency (how much of the
-    S-fold work the chip absorbs by filling the MXU/VPU better).
+    S-fold work the chip absorbs by filling the device better).
     Efficiency(S) = t(1) * S / t(S): the throughput of the S-stream batch
     relative to running the same S streams back-to-back; 1.0 means batching
     is free, > 1.0 means the batch fills the chip better than one stream.
   * --mesh (virtual 8-CPU mesh): MultiStreamFilter with mesh {'stream': S},
     one stream per device — per-device work is constant, so ideal scaling
     keeps the per-STEP wall time flat.  Efficiency(S) = t_step(1)/t_step(S).
-    This is the shape the driver's dryrun validates and what real multi-chip
-    ICI would execute.  NOTE (r2->r3): virtual CPU devices share this host's
+    This is the shape the driver's dryrun validates and what a real
+    multi-device mesh would execute.  NOTE (r2->r3): virtual CPU devices share this host's
     2 physical cores, so wall time necessarily grows with S regardless of
     how the program is partitioned; run --mesh --control to measure that
     harness floor with a trivially-parallel workload and compare.
 
 Emits one JSON line per S as soon as it's measured (stdout, flushed);
-compile progress goes to stderr.  Wire LVK_COMPILE_CACHE (or rely on the
-repo-default .cache/jax) to make repeat runs skip the multi-minute XLA
-compiles.
+compile progress goes to stderr.  The persistent compile cache
+(JAX_COMPILATION_CACHE_DIR, else the repo's .cache/jax) makes repeat runs
+skip the XLA compiles.
 
 Usage:
     python tools/bench_scaling.py [--mesh] [--control] [--size HxW]

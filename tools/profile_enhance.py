@@ -1,4 +1,4 @@
-"""Stage-level TPU latency profile of the enhancement filters (deblock, EASU,
+"""Stage-level device latency profile of the enhancement filters (deblock, EASU,
 RCAS) — the 4K60-chain legs VERDICT r1 flagged.
 
 Usage: python tools/profile_enhance.py

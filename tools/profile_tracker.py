@@ -1,11 +1,10 @@
-"""Sub-stage TPU latency profile of FrameTracker.track (scan-delta method).
+"""Sub-stage device latency profile of FrameTracker.track (scan-delta method).
 
 Usage: python tools/profile_tracker.py [S]
 
-S > 1 vmaps every stage over S streams — the serving decomposition (r5:
-tracker.track at S=8 measured 7.4 ms of the 20 ms EASU serving step; this
-tool attributes it to detect / pyramid / LK / RANSAC so optimization lands
-on the real cost).
+S > 1 vmaps every stage over S streams — the serving decomposition; this
+tool attributes the tracker's time to detect / pyramid / LK / RANSAC so
+optimization lands on the real cost.
 """
 
 from __future__ import annotations
